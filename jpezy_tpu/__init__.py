@@ -1,8 +1,8 @@
-"""jpezy_tpu: a TPU-native baseline JPEG codec framework.
+"""jpezy_tpu: a batched baseline JPEG codec framework for accelerators.
 
 Capabilities match the reference jpezy (PPM P3 in -> JFIF 4:2:0 baseline out,
 JPEG in -> PPM out, fixed ISO/IEC 10918-1 Annex K tables) re-designed as a
-batched, mesh-shardable array program on JAX/XLA/Pallas with a C++ host
+batched, mesh-shardable array program on JAX/XLA with a C++ host
 runtime for byte-granular I/O.
 
 Public API (the reference's library embedding analog, README.md:158-175):

@@ -15,7 +15,7 @@ its decodes bit-identical to `oracle.decode`.
 Referents: encoder pipeline jpezy_encoder.hpp:38-242, decoder pipeline
 jpezy_decoder.hpp:76-134,583-670.  Layering: this is the L3 codec core on
 the host axis; the CLI (L4) auto-picks it below a size threshold
-(cli._pick_backend) and the TPU transports above it.
+(cli._pick_backend) and the device transports above it.
 """
 from __future__ import annotations
 

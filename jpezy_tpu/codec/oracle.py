@@ -293,6 +293,34 @@ def segmented_dc_predictors(dc: np.ndarray, blocks_per_mcu: int,
     return pred
 
 
+def quantized_blocks(r: np.ndarray, g: np.ndarray, b: np.ndarray, *,
+                     gray: bool = False):
+    """RGB planes [H, W] uint8 -> quantized coefficient blocks (yq, cbq,
+    crq), each [B, 64] natural order: the encoder's front half."""
+    h, w = r.shape
+    geo = EncodeGeometry(width=w, height=h)
+
+    y, cb, cr = rgb_to_ycc(r, g, b)
+    y = pad_replicate(y, geo.padded_height, geo.padded_width)
+    cb = pad_replicate(cb, geo.padded_height, geo.padded_width)
+    cr = pad_replicate(cr, geo.padded_height, geo.padded_width)
+    # 4:2:0 decimation: top-left of each 2x2 (jpezy_encoder.hpp:116-143)
+    cb = cb[0::2, 0::2]
+    cr = cr[0::2, 0::2]
+
+    yb = blockify_luma(y)
+    cbb = blockify_chroma(cb)
+    crb = blockify_chroma(cr)
+    if gray:
+        # chroma blocks zeroed post color-convert (jpezy_encoder.hpp:61-64)
+        cbb = np.zeros_like(cbb)
+        crb = np.zeros_like(crb)
+
+    return (quantize(forward_dct(yb), chroma=False),
+            quantize(forward_dct(cbb), chroma=True),
+            quantize(forward_dct(crb), chroma=True))
+
+
 def encode(
     r: np.ndarray,
     g: np.ndarray,
@@ -312,26 +340,7 @@ def encode(
     if props is None:
         props = make_encode_props(w, h, gray=gray)
     geo = EncodeGeometry(width=w, height=h)
-
-    y, cb, cr = rgb_to_ycc(r, g, b)
-    y = pad_replicate(y, geo.padded_height, geo.padded_width)
-    cb = pad_replicate(cb, geo.padded_height, geo.padded_width)
-    cr = pad_replicate(cr, geo.padded_height, geo.padded_width)
-    # 4:2:0 decimation: top-left of each 2x2 (jpezy_encoder.hpp:116-143)
-    cb = cb[0::2, 0::2]
-    cr = cr[0::2, 0::2]
-
-    yb = blockify_luma(y)
-    cbb = blockify_chroma(cb)
-    crb = blockify_chroma(cr)
-    if gray:
-        # chroma blocks zeroed post color-convert (jpezy_encoder.hpp:61-64)
-        cbb = np.zeros_like(cbb)
-        crb = np.zeros_like(crb)
-
-    yq = quantize(forward_dct(yb), chroma=False)
-    cbq = quantize(forward_dct(cbb), chroma=True)
-    crq = quantize(forward_dct(crb), chroma=True)
+    yq, cbq, crq = quantized_blocks(r, g, b, gray=gray)
 
     ri = restart_interval
     y_codes, y_lens = encode_block_emissions(

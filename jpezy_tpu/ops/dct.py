@@ -1,20 +1,24 @@
 """8x8 DCT-II / IDCT as single 64x64 matmuls (device, jnp).
 
-TPU-first design: instead of the reference's O(64^2) scalar quad loop per
-block (src/encoder/jpezy_encoder.hpp:146-166, src/decoder/jpezy_decoder.hpp:
-652-670), all blocks are flattened to [B, 64] and hit the MXU as one
-[B, 64] @ [64, 64] contraction.  The separable basis is folded into a single
-matrix M[(u,v), (y,x)] = cu*cv/4 * cos((2y+1)u pi/16) cos((2x+1)v pi/16),
-so the contraction dimension is 64 (vs 8 for the separable two-pass form),
-which maps far better onto the 128x128 systolic array.
+Instead of the reference's O(64^2) scalar quad loop per block
+(src/encoder/jpezy_encoder.hpp:146-166, src/decoder/jpezy_decoder.hpp:
+652-670), all blocks are flattened to [B, 64] and run as one
+[B, 64] @ [64, 64] matrix product.  The separable basis is folded into a
+single matrix M[(u,v), (y,x)] = cu*cv/4 * cos((2y+1)u pi/16)
+cos((2x+1)v pi/16), so the contraction dimension is 64 (vs 8 for the
+separable two-pass form).
 
-float32 is the fast path; float64 reproduces the reference's
-double-precision int() truncation (used for bit-exact parity testing and
-`precision="exact"` decode).
+float32 is the fast path, pinned to Precision.HIGHEST: a GPU may otherwise
+run a float32 product in TF32 (~10 mantissa bits), and DCT sums of 8-bit
+samples reach the thousands, so TF32 would break the fast path's envelope.
+float64 reproduces the reference's double-precision int() truncation
+(bit-exact parity testing and `precision="exact"`): its ordered sums keep
+every product rounded on its own (see `rounded`).
 """
 from __future__ import annotations
 
 import numpy as np
+import jax
 import jax.numpy as jnp
 
 
@@ -46,13 +50,24 @@ def forward_dct(blocks: jnp.ndarray, dtype=jnp.float32) -> jnp.ndarray:
     Truncation toward zero matches the reference's `int(sum * cu*cv / 4)`
     (jpezy_encoder.hpp:163).  float64 uses the reference's exact term and
     accumulation order (summation-order ties flip ~2% of blocks by +-1;
-    see codec/oracle.py); float32 uses the MXU matmul form.
+    see codec/oracle.py); float32 uses the matmul form.
     """
     if dtype == jnp.float64:
         return _forward_dct_ordered(blocks)
     m = jnp.asarray(_FWD64, dtype=dtype)
-    d = jnp.dot(blocks.astype(dtype), m.T, preferred_element_type=dtype)
+    d = jnp.dot(blocks.astype(dtype), m.T, preferred_element_type=dtype,
+                precision=jax.lax.Precision.HIGHEST)
     return d.astype(jnp.int32)
+
+
+def rounded(x):
+    """x as a value XLA must round on its own: the select between its
+    producing multiply and any later add keeps the compiler from
+    contracting the two into one FMA, and from folding a chain of constant
+    multiplies into one.  The float64 DCT/IDCT pass every product through
+    it, so they round like the oracle's numpy, one operation at a time.
+    (x == x holds for every finite x.)"""
+    return jnp.where(x == x, x, jnp.zeros_like(x))
 
 
 def _forward_dct_ordered(blocks: jnp.ndarray) -> jnp.ndarray:
@@ -63,10 +78,11 @@ def _forward_dct_ordered(blocks: jnp.ndarray) -> jnp.ndarray:
     c1 = jnp.asarray(_o._FWD_C1)
     c2 = jnp.asarray(_o._FWD_C2)
     for k in range(64):
-        s = s + (pic[:, k : k + 1] * c1[k][None, :]) * c2[k][None, :]
+        t = rounded(pic[:, k : k + 1] * c1[k][None, :])
+        s = s + rounded(t * c2[k][None, :])
     s = s.reshape(-1, 8, 8)
     cu = jnp.asarray(_o._CU_J)
-    res = ((s * cu[None, None, :]) * cu[None, :, None]) / 4.0
+    res = rounded(rounded(s * cu[None, None, :]) * cu[None, :, None]) / 4.0
     return res.reshape(-1, 64).astype(jnp.int32)
 
 
@@ -80,7 +96,8 @@ def inverse_dct(coeffs: jnp.ndarray, level_shift: int = 128,
     if dtype == jnp.float64:
         return _inverse_dct_ordered(coeffs, level_shift)
     m = jnp.asarray(_INV64, dtype=dtype)
-    s = jnp.dot(coeffs.astype(dtype), m.T, preferred_element_type=dtype)
+    s = jnp.dot(coeffs.astype(dtype), m.T, preferred_element_type=dtype,
+                precision=jax.lax.Precision.HIGHEST)
     return (s + jnp.asarray(level_shift, dtype)).astype(jnp.int32)
 
 
@@ -93,5 +110,6 @@ def _inverse_dct_ordered(coeffs: jnp.ndarray, level_shift: int) -> jnp.ndarray:
     c1 = jnp.asarray(_o._INV_C1)
     c2 = jnp.asarray(_o._INV_C2)
     for k in range(64):
-        s = s + ((cucv[k] * d[:, k : k + 1]) * c1[k][None, :]) * c2[k][None, :]
+        t = rounded(rounded(cucv[k] * d[:, k : k + 1]) * c1[k][None, :])
+        s = s + rounded(t * c2[k][None, :])
     return (s / 4.0 + jnp.float64(level_shift)).astype(jnp.int32)

@@ -1,7 +1,7 @@
 """Huffman entropy ENCODE as a batched array program (device, jnp).
 
 The reference walks each block serially, emitting variable-length codes
-through a bit cursor (src/encoder/jpezy_encoder.hpp:174-225).  TPU-first
+through a bit cursor (src/encoder/jpezy_encoder.hpp:174-225).  Array-program
 reformulation (cf. SURVEY.md section 2.7 and the GPU-JPEG literature):
 
  1. Every block's emission stream is expressed as exactly 64 *merged
@@ -14,8 +14,8 @@ reformulation (cf. SURVEY.md section 2.7 and the GPU-JPEG literature):
  3. Per-block bit packing is scatter-free: each emission's <=59 bits are
     aligned into a 96-bit window of three 32-bit words, and windows are
     OR-accumulated into the block's word buffer under a word-index iota
-    mask (disjoint bit patterns make OR == add) -- as a Pallas kernel on
-    TPU (ops/pack_pallas.py) or a fori_loop fallback elsewhere.
+    mask (disjoint bit patterns make OR == add) -- one fused
+    broadcast-compare-reduce in plain XLA (pack_method).
  4. Cross-block concatenation ALSO happens on device (concat_device):
     block words are funnel-shifted by their global bit phase and
     scatter-added at sorted word offsets, so only ~stream-size bytes cross
@@ -134,9 +134,9 @@ def symbol_histograms(qblocks: jnp.ndarray, dc_pred: jnp.ndarray):
 def _lookup_chain(table, idx, dtype=jnp.uint32):
     """Gather-free small-table lookup: compare-select chain over entries.
 
-    XLA's general gather lowers catastrophically for per-element
-    small-table lookups on TPU (measured 366 ms vs 2.7 ms for a 162-entry
-    chain at [590k, 63] on the v5e); the chain fuses into one VPU pass.
+    The chain fuses into one elementwise pass instead of a per-element
+    gather.  Chosen on the first target accelerator, where the gather form
+    was far slower; not measured on the H100.
     table: [T] int array (constant or traced); idx: any-shape int array.
     """
     acc = jnp.zeros(idx.shape, dtype)
@@ -279,14 +279,15 @@ def concat_device_restart(words, bits, maxw: int, seg_blocks: int,
     return _scatter_stream(words, goff, bits, maxw, tiered), total, seg_bits
 
 
-# Scatter-add on this TPU costs ~9 ns per element regardless of locality,
-# so scattering the full 65-column contribution windows dominates the whole
-# encode program (56 of 64 ms/batch measured).  Blocks are short -- typical
-# content runs ~13 bits/block (max ~45), even noise maxes out near 200 --
-# so the window is trimmed to the narrowest column tier that provably
-# covers max(bits) + the 31-bit phase, picked at RUNTIME by lax.cond
-# (the untaken branches never execute).  The bench corpus maxes at 45
-# bits/block -> tier 3; smooth content reaches tier 2.
+# Scatter-add cost grows with the elements scattered, and the full
+# 65-column contribution windows are mostly zeros: blocks are short --
+# typical content runs ~13 bits/block (max ~45), even noise maxes out near
+# 200 -- so the window is trimmed to the narrowest column tier that
+# provably covers max(bits) + the 31-bit phase, picked at RUNTIME by
+# lax.cond (the untaken branches never execute).  The bench corpus maxes
+# at 45 bits/block -> tier 3; smooth content reaches tier 2.  Chosen on the
+# first target accelerator, where the full-width scatter dominated the
+# encode; not measured on the H100.
 _SCATTER_TIERS = (2, 3, 4, 12)  # columns; tier C valid when bits <= 32*C-31
 
 
@@ -448,36 +449,24 @@ def _window_words(hi, lo, nbits, off):
     return w0, wwords
 
 
-def pack_method(use_pallas: bool | None = None) -> str:
-    """Which pack implementation to use: 'reduce' (default everywhere),
-    'prefix', 'pallas', or 'fori'.
-
-    The reduce formulation is pure XLA (no Mosaic kernel compile -- the
-    round-2 bench lost 140-400 s of cold start to the Pallas kernel's
-    deferred server-side compile) and measures fastest inside the fused
-    encode program on the v5e (full batch encode: reduce 165 ms, fori
-    185 ms, prefix 554 ms -- take_along_axis gathers are slow there).
-    JPEZY_PACK overrides; the legacy JPEZY_NO_PALLAS=1 and use_pallas=
-    knobs keep their meaning.
-    """
+def pack_method() -> str:
+    """Which pack implementation to use: 'reduce' (default), 'prefix' or
+    'fori'; JPEZY_PACK overrides.  All three are plain XLA and bit-equal
+    (tests/test_entropy_vectors.py); the reduce form fuses into one
+    broadcast-compare-reduce over the emission axis.  Times of the three
+    inside the fused encode on the H100 are in PERF.md."""
     import os
 
     m = os.environ.get("JPEZY_PACK")
-    if m in ("prefix", "reduce", "pallas", "fori"):
-        return m
-    if use_pallas:
-        return "pallas"
-    if use_pallas is not None or os.environ.get("JPEZY_NO_PALLAS") == "1":
-        return "fori"
-    return "reduce"
+    return m if m in ("prefix", "reduce", "fori") else "reduce"
 
 
 def _pack_words_reduce(w0, wwords):
     """Masked-sum pack: packed[b, w] = sum_e sum_j Wj[b,e] * [w0[b,e]+j == w].
 
     Bit-disjointness across emissions makes integer ADD == OR, so the whole
-    pack is one fused broadcast-compare-reduce over the emission axis (pure
-    XLA -- no Pallas/Mosaic compile, no sequential 64-step loop).
+    pack is one fused broadcast-compare-reduce over the emission axis (no
+    sequential 64-step loop).
     """
     iota = jnp.arange(WORDS_PER_BLOCK, dtype=w0.dtype)[None, None, :]
     t = w0[:, :, None]                                   # [B, E, 1]
@@ -519,15 +508,12 @@ def _pack_words_prefix(w0, wwords):
     return out
 
 
-def pack_block_words(hi, lo, nbits, use_pallas: bool | None = None):
+def pack_block_words(hi, lo, nbits):
     """Pack merged emissions into per-block 32-bit words.
 
     hi, lo: [B, 64] uint32 emission values (MSB-justified in (hi:lo) low bits),
     nbits: [B, 64] int32 emission lengths (<= 59).
     Returns (words [B, WORDS_PER_BLOCK] uint32 MSB-first, bits_per_block [B]).
-
-    On TPU backends the accumulation runs as a single Pallas kernel
-    (ops/pack_pallas.py); elsewhere a fori_loop masked-OR fallback.
 
     Scatter-free: each emission is aligned into a 96-bit window (3 words)
     starting at its word offset; a fori_loop over the 64 emission slots
@@ -541,15 +527,11 @@ def pack_block_words(hi, lo, nbits, use_pallas: bool | None = None):
     total = off[:, -1] + nbits[:, -1]
     w0, wwords = _window_words(hi, lo, nbits, off)
 
-    method = pack_method(use_pallas)
+    method = pack_method()
     if method == "prefix":
         return _pack_words_prefix(w0, wwords), total
     if method == "reduce":
         return _pack_words_reduce(w0, wwords), total
-    if method == "pallas":
-        from .pack_pallas import pack_words_pallas
-
-        return pack_words_pallas(w0, wwords[0], wwords[1], wwords[2]), total
 
     wstack = jnp.stack(wwords)                       # [3, B, E]
 

@@ -8,8 +8,9 @@ decode_sharded: same-geometry JPEGs -> pixels, host entropy frontend +
 ONE fused shard_map over all components with a single device fetch
 (the referent is the full decode pipeline, jpezy_decoder.hpp:76-134).
 
-For pod slices: build the mesh with 'data' across hosts (DCN) and 'tile'
-across the ICI ring; see jpezy_tpu.parallel.distributed for multi-host init.
+Cards joined all to all (NVLink) take any mesh order.  Across hosts, lay
+'data' over the hosts and 'tile' within each; see
+jpezy_tpu.parallel.distributed for multi-host init.
 
 All encode extensions (quality, restart_interval, optimize) are supported
 here with the same semantics as codec.jax_codec.encode (docs/PARITY.md);
@@ -135,7 +136,7 @@ def _decode_sharded_device(mesh: Mesh, pjs, p0, mcus_x, mcus_y, level):
     Lw = words.shape[1]
     if jax.process_count() > 1:
         # multi-host: `streams`/pjs are THIS process's local images; each
-        # host feeds its own frontend output (no bytes cross DCN) and
+        # host feeds its own frontend output (no image bytes cross hosts) and
         # reassembles its own rows from the addressable shards
         from .distributed import (gather_local_rows, make_global_from_local,
                                   replicate_global)
@@ -190,16 +191,12 @@ def encode_sharded_dispatch(mesh: Mesh, batch_rgb: np.ndarray, *,
     the compact per-shard streams.  Returns an opaque ticket for
     encode_sharded_finish (the host splice/assembly half).  The split lets
     callers measure device-side sharding cost separately from the host
-    splice, which on a real pod shards across hosts (scripts/scaling.py).
+    splice, which shards across hosts in a multi-host run (scripts/scaling.py).
     """
     n, h, w = batch_rgb.shape[:3]
     if restart_interval < 0:
         raise ValueError(
             f"restart_interval must be >= 0, got {restart_interval}")
-    if sharded._mesh_use_pallas(mesh):
-        from ..codec.jax_codec import _warm_pallas_if_needed
-
-        _warm_pallas_if_needed()
     geo = EncodeGeometry(width=w, height=h)
     tile = mesh.shape["tile"]
     mcus_per_shard = geo.num_mcus // tile

@@ -1,10 +1,10 @@
 """Multi-host initialization and host-sharded batch placement.
 
-On a pod slice, each host process calls initialize() once, builds the global
-('data', 'tile') mesh over all devices, and feeds its local image shard with
-make_global_batch().  Collectives (the DC-carry ppermute) ride ICI within
-the slice; the 'data' axis carries no collectives so host-boundary (DCN)
-traffic is zero during encode.
+In a multi-host run, each host process calls initialize() once, builds the
+global ('data', 'tile') mesh over all devices, and feeds its local image
+shard with make_global_batch().  The DC-carry ppermute runs between the
+cards of one host (all to all over NVLink); the 'data' axis carries no
+collectives, so no traffic crosses hosts during encode.
 
 This module is exercised in CI only up to mesh construction (single
 process); the multi-host path follows the standard jax.distributed contract.
@@ -33,7 +33,7 @@ def make_global_mesh(data: int | None = None, tile: int | None = None) -> Mesh:
     """Global mesh over all devices of all processes.
 
     Default: 'data' spans hosts (process-major device order), 'tile' spans
-    the devices within a host, so the carry ppermute stays on ICI.
+    the devices within a host, so the carry ppermute stays within a host.
     """
     devices = np.asarray(jax.devices())
     n = len(devices)
@@ -47,7 +47,7 @@ def make_global_mesh(data: int | None = None, tile: int | None = None) -> Mesh:
 def make_global_batch(mesh: Mesh, local_batch: np.ndarray) -> jax.Array:
     """Assemble a process-local [N_loc, H, W] shard into the global array.
 
-    Uses jax.make_array_from_process_local_data so no image bytes cross DCN.
+    Uses jax.make_array_from_process_local_data so no image bytes cross hosts.
     """
     return make_global_from_local(
         mesh, local_batch, P("data", "tile", None))
@@ -57,7 +57,7 @@ def make_global_from_local(mesh: Mesh, local: np.ndarray,
                            spec: P) -> jax.Array:
     """Place a process-local leading-axis shard into a global array whose
     leading axis spans processes ('data' = hosts); single-process falls
-    back to a plain device_put.  No bytes cross DCN."""
+    back to a plain device_put.  No bytes cross hosts."""
     sharding = NamedSharding(mesh, spec)
     if jax.process_count() == 1:
         return jax.device_put(local, sharding)
@@ -83,7 +83,7 @@ def gather_local_rows(out: jax.Array, n_local: int) -> np.ndarray:
 
     The inverse of make_global_from_local for the decode output: with
     'data' spanning hosts and 'tile' within a host, every tile shard of a
-    local image is addressable, so no DCN traffic is needed."""
+    local image is addressable, so no traffic crosses hosts."""
     if jax.process_count() == 1:
         return np.asarray(out)[:n_local] if n_local else np.asarray(out)
     rows: dict[int, dict[int, np.ndarray]] = {}

@@ -5,8 +5,10 @@ The canonical mesh is 2-axis ('data', 'tile'):
   - 'tile': MCU-row ranges of a single image (needs a DC-predictor carry
     exchange between neighboring shards on encode; cf. SURVEY.md section 2.7)
 
-On a pod slice, lay 'data' over DCN/hosts and 'tile' over ICI so the carry
-ppermute rides the fast interconnect.
+Cards joined all to all (NVLink within a host) reach each other at one
+rate, so the mesh order follows the algorithm alone.  Across hosts, lay
+'data' over the hosts and 'tile' within each, so the carry ppermute never
+leaves a host.
 """
 from __future__ import annotations
 

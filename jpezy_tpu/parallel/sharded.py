@@ -10,13 +10,13 @@ Everything in the codec is block-local except two sequential dependencies
     device and spliced on the host (byte-granular work).
 
 Sharding layout: images over 'data' (no collectives), contiguous MCU-row
-ranges of each image over 'tile'.  On a pod slice put 'data' on DCN and
-'tile' on ICI.
+ranges of each image over 'tile'.  Cards joined all to all (NVLink) need
+no particular device order; across hosts, keep 'tile' within a host so the
+carry ppermute stays off the network.
 """
 from __future__ import annotations
 
 import functools
-import os
 
 import numpy as np
 import jax
@@ -36,8 +36,7 @@ from ..ops import quantize as Q
 
 
 def _encode_local(r, g, b, *, gray: bool, dtype, rounded: bool, tile_axis: str | None,
-                  use_pallas: bool | None = None, qtables=None,
-                  restart_interval: int = 0):
+                  qtables=None, restart_interval: int = 0):
     """Encode the local shard: [N_loc, H_loc, W] planes -> (words, bits).
 
     H_loc must be a multiple of 16 (whole MCU rows per shard).
@@ -47,13 +46,13 @@ def _encode_local(r, g, b, *, gray: bool, dtype, rounded: bool, tile_axis: str |
     cr = jax.vmap(B.decimate_420)(cr)
     return _encode_local_ycc(
         y, cb, cr, gray=gray, dtype=dtype, rounded=rounded,
-        tile_axis=tile_axis, use_pallas=use_pallas, qtables=qtables,
+        tile_axis=tile_axis, qtables=qtables,
         restart_interval=restart_interval,
     )
 
 
 def _encode_local_ycc(y, cb, cr, *, gray: bool, dtype, rounded: bool,
-                      tile_axis: str | None, use_pallas: bool | None = None,
+                      tile_axis: str | None,
                       qtables=None, restart_interval: int = 0,
                       interleave: bool = True):
     """Encode from level-shifted YCC planes (chroma already 4:2:0 decimated).
@@ -67,7 +66,6 @@ def _encode_local_ycc(y, cb, cr, *, gray: bool, dtype, rounded: bool,
     yq, cbq, crq = _quantize_local_ycc(
         y, cb, cr, gray=gray, dtype=dtype, rounded=rounded, qtables=qtables)
     return _emit_local(yq, cbq, crq, tile_axis=tile_axis,
-                       use_pallas=use_pallas,
                        restart_interval=restart_interval,
                        interleave=interleave)
 
@@ -96,8 +94,7 @@ def _quantize_local_ycc(y, cb, cr, *, gray: bool, dtype, rounded: bool,
     return tuple(out)
 
 
-def _emit_local(yq, cbq, crq, *, tile_axis: str | None,
-                use_pallas: bool | None = None, tables=(None, None),
+def _emit_local(yq, cbq, crq, *, tile_axis: str | None, tables=(None, None),
                 restart_interval: int = 0, interleave: bool = True):
     """Quantized blocks -> (words, bits), with the DC-carry ppermute when
     tile-sharded.  tables: optional (ytables, ctables) custom flat Huffman
@@ -128,8 +125,7 @@ def _emit_local(yq, cbq, crq, *, tile_axis: str | None,
             idx = jnp.arange(b_loc, dtype=jnp.int32)[None, :]
             pred = jnp.where(idx % seg_blocks == 0, jnp.zeros_like(pred), pred)
         # flatten images into the block axis: emissions are block-local
-        # (the DC chain is already captured in `pred`), and vmap would
-        # serialize the Pallas pack kernel
+        # (the DC chain is already captured in `pred`)
         hi, lo, nb = E.block_emissions(
             q.reshape(-1, 64), pred.reshape(-1), chroma, tables=tabs
         )
@@ -145,8 +141,7 @@ def _emit_local(yq, cbq, crq, *, tile_axis: str | None,
     packed = []
     for hi, lo, nb in ems:
         w_c, b_c = E.pack_block_words(
-            hi.reshape(-1, 64), lo.reshape(-1, 64), nb.reshape(-1, 64),
-            use_pallas=use_pallas)
+            hi.reshape(-1, 64), lo.reshape(-1, 64), nb.reshape(-1, 64))
         packed.append((w_c.reshape(n_loc, -1, w_c.shape[-1]),
                        b_c.reshape(n_loc, -1)))
     if not interleave:
@@ -170,19 +165,6 @@ def _emit_local(yq, cbq, crq, *, tile_axis: str | None,
     return words, bits
 
 
-def _mesh_use_pallas(mesh: Mesh) -> bool | None:
-    """Packer choice for the devices that will actually run the shard_map.
-
-    Returns None (= the pure-XLA default, ops.entropy.pack_method) unless
-    JPEZY_PACK=pallas explicitly opts into the Pallas kernel AND the mesh's
-    platform is really TPU (the process default backend may differ from the
-    mesh's platform, e.g. a CPU validation mesh on a TPU host)."""
-    if os.environ.get("JPEZY_PACK") != "pallas":
-        return None
-    mesh_platform = np.asarray(mesh.devices).flat[0].platform
-    return True if mesh_platform == "tpu" else None
-
-
 @functools.lru_cache(maxsize=64)
 def make_sharded_encode(mesh: Mesh, *, gray: bool = False,
                         precision: str = "fast", rounded: bool = False,
@@ -201,7 +183,7 @@ def make_sharded_encode(mesh: Mesh, *, gray: bool = False,
     qtables = (T.scale_quant_tables(quality) if quality is not None else None)
     local = functools.partial(
         _encode_local, gray=gray, dtype=dtype, rounded=rounded,
-        tile_axis="tile", use_pallas=_mesh_use_pallas(mesh), qtables=qtables,
+        tile_axis="tile", qtables=qtables,
         restart_interval=restart_interval,
     )
     fn = shard_map(
@@ -209,8 +191,6 @@ def make_sharded_encode(mesh: Mesh, *, gray: bool = False,
         mesh=mesh,
         in_specs=(P("data", "tile", None),) * 3,
         out_specs=(P("data", "tile", None), P("data", "tile")),
-        # pallas_call inside shard_map can't infer vma on this jax version
-        check_vma=False,
     )
     return jax.jit(fn)
 
@@ -258,12 +238,11 @@ def make_sharded_encode_stream(mesh: Mesh, *, gray: bool = False,
 
     dtype = jnp.float64 if precision == "exact" else jnp.float32
     qtables = (T.scale_quant_tables(quality) if quality is not None else None)
-    use_pallas = _mesh_use_pallas(mesh)
 
     def local(r, g, b):
         words, bits = _encode_local(
             r, g, b, gray=gray, dtype=dtype, rounded=rounded,
-            tile_axis="tile", use_pallas=use_pallas, qtables=qtables,
+            tile_axis="tile", qtables=qtables,
             restart_interval=restart_interval,
         )
         return _concat_local_combined(words, bits, maxw_shard,
@@ -274,7 +253,6 @@ def make_sharded_encode_stream(mesh: Mesh, *, gray: bool = False,
         mesh=mesh,
         in_specs=(P("data", "tile", None),) * 3,
         out_specs=P("data", "tile", None),
-        check_vma=False,
     )
     return jax.jit(fn)
 
@@ -329,7 +307,6 @@ def make_sharded_quantize(mesh: Mesh, *, gray: bool = False,
         mesh=mesh,
         in_specs=(P("data", "tile", None),) * 3,
         out_specs=(P("data", "tile", None),) * 3 + (P(),),
-        check_vma=False,
     )
     return jax.jit(fn)
 
@@ -343,11 +320,9 @@ def make_sharded_emit_stream(mesh: Mesh, *, restart_interval: int = 0,
     fn(yq, cbq, crq, ytables, ctables) -> combined, as
     make_sharded_encode_stream.
     """
-    use_pallas = _mesh_use_pallas(mesh)
-
     def local(yq, cbq, crq, ytables, ctables):
         words, bits = _emit_local(
-            yq, cbq, crq, tile_axis="tile", use_pallas=use_pallas,
+            yq, cbq, crq, tile_axis="tile",
             tables=(ytables, ctables), restart_interval=restart_interval,
         )
         return _concat_local_combined(words, bits, maxw_shard,
@@ -358,7 +333,6 @@ def make_sharded_emit_stream(mesh: Mesh, *, restart_interval: int = 0,
         mesh=mesh,
         in_specs=(P("data", "tile", None),) * 3 + (P(None), P(None)),
         out_specs=P("data", "tile", None),
-        check_vma=False,
     )
     return jax.jit(fn)
 
@@ -394,7 +368,6 @@ def make_sharded_decode_component(mesh: Mesh, *, v: int, h: int, dup_y: int,
         mesh=mesh,
         in_specs=(P("data", "tile", None), P(None)),
         out_specs=P("data", "tile", None),
-        check_vma=False,
     )
     return jax.jit(fn)
 
@@ -435,7 +408,6 @@ def make_sharded_decode(mesh: Mesh, *, comps, mcus_x: int, level: int = 128,
         mesh=mesh,
         in_specs=tuple([P("data", "tile", None)] * ncomp + [P(None)] * ncomp),
         out_specs=P("data", "tile", None, None),
-        check_vma=False,
     )
     return jax.jit(fn)
 
@@ -500,6 +472,8 @@ def make_sharded_decode_device(mesh: Mesh, *, ri: int, mcus_x: int,
         mesh=mesh,
         in_specs=(P("data", "tile", None), P("data", "tile"), P(None, None)),
         out_specs=P("data", "tile", None, None),
+        # the scan's loop carries start as unvarying zeros
+        # (ops.entropy_decode) and become shard-varying inside the loop
         check_vma=False,
     )
     return jax.jit(fn)

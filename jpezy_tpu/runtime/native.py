@@ -32,12 +32,15 @@ def _build() -> None:
     # -ffp-contract=off: the host-codec DCT/IDCT must round exactly like
     # numpy float64 (no a*b+c FMA fusion) to stay bit-identical to the
     # oracle's reference semantics
+    # a per-process temporary: test workers that start together each build
+    # and atomically rename a complete library, never one another's half
+    tmp = f"{_SO}.{os.getpid()}.tmp"
     cmd = [
         "g++", "-O3", "-march=native", "-ffp-contract=off", "-std=c++17",
-        "-shared", "-fPIC", _SRC, "-o", _SO + ".tmp",
+        "-shared", "-fPIC", _SRC, "-o", tmp,
     ]
     subprocess.run(cmd, check=True, capture_output=True)
-    os.replace(_SO + ".tmp", _SO)
+    os.replace(tmp, _SO)
 
 
 def get_lib() -> ctypes.CDLL:

@@ -1,18 +1,19 @@
 """Profiling helpers: reference-style section timing + jax.profiler traces
 and a roofline estimate for the codec's device stages.
 
-(SURVEY.md section 5: the reference only has RAII wall-clock messengers; the
-TPU equivalents are program-level traces and FLOP/byte accounting.)
+(SURVEY.md section 5: the reference only has RAII wall-clock messengers;
+the device equivalents are program-level traces and FLOP/byte accounting.)
 """
 from __future__ import annotations
 
 import contextlib
 import os
+import subprocess
 import time
 
 
 @contextlib.contextmanager
-def device_trace(logdir: str = "/tmp/jpezy_tpu_trace"):
+def device_trace(logdir: str):
     """jax.profiler trace context (view with tensorboard/xprof)."""
     import jax
 
@@ -22,6 +23,18 @@ def device_trace(logdir: str = "/tmp/jpezy_tpu_trace"):
         yield logdir
     finally:
         jax.profiler.stop_trace()
+
+
+def card_lines() -> list[str]:
+    """Each GPU's name and power limit as nvidia-smi reports them
+    ("NVIDIA H100 80GB HBM3, 700.00 W"), read by a child process that does
+    not touch JAX.  A card below its maximum power limit runs slower under
+    load, so every reported time names the limit beside the card."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        check=True, capture_output=True, text=True, timeout=60).stdout
+    return [ln.strip() for ln in out.splitlines() if ln.strip()]
 
 
 def encode_flops(width: int, height: int) -> dict:

@@ -5,13 +5,14 @@ from __future__ import annotations
 import time
 
 
-def disp_logo() -> None:
+def disp_logo(backend: str) -> None:
+    """The reference's banner, tagged with the backend this run uses."""
     print("   _")
     print("  (_)_ __   ___ _____   _")
     print("  | | '_ \\ / _ \\_  / | | | ")
     print("  | | |_) |  __// /| |_| |")
     print(" _/ | .__/ \\___/___|\\__, |")
-    print("|__/|_|             |___/\ton tpu")
+    print(f"|__/|_|             |___/\ton {backend}")
     print()
 
 

@@ -3,9 +3,9 @@
 Runs the sharded encode pipeline at mesh sizes 1, 2, 4, ... over the
 available devices.  Two regimes:
 
-* Real pod slice (one process per host via
-  jpezy_tpu.parallel.distributed.initialize): images/s grows with devices
-  and `efficiency_pct` is true strong-scaling efficiency.
+* Real devices (the GPUs of one host, or several hosts with one process
+  each via jpezy_tpu.parallel.distributed.initialize): images/s grows with
+  devices and `efficiency_pct` is true strong-scaling efficiency.
 
 * CPU virtual mesh (--cpu): all N "devices" are threads on the SAME
   physical cores, so total compute throughput CANNOT grow -- flat images/s
@@ -23,9 +23,9 @@ available devices.  Two regimes:
 Usage: python scripts/scaling.py [--devices N] [--batch N] [--size HxW]
        [--cpu] [--json OUT.json]
 
-The driver-facing artifact (SCALING_r0N.json) is produced each round with:
+Example (CPU virtual mesh):
     python scripts/scaling.py --cpu --devices 8 --batch 8 --size 1024x512 \
-        --big 4352x2048 --json SCALING_r0N.json
+        --big 4352x2048 --json scaling.json
 (--big adds a single-image tile-sharding run at 8K-class MCU-row counts so
 the DC-carry ppermute chain is exercised at realistic depth.)
 """

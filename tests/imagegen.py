@@ -1,5 +1,5 @@
 """Deterministic synthetic test images (no jax imports, no config side
-effects -- safe to import from benchmarks and TPU scripts)."""
+effects -- safe to import from benchmarks and chip_smoke.py)."""
 import numpy as np
 
 

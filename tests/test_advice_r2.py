@@ -5,7 +5,6 @@
           corrupted the last image's blocks).
 2. medium encode_batch(..., restart_interval=) must fall back to a host
           splice when a dense stream overflows the device budget, not raise.
-3. low    warm_pack_kernel must not latch _warmed=True when the warmup raises.
 """
 import numpy as np
 import pytest
@@ -77,26 +76,3 @@ class TestRestartBudgetOverflow:
                 restart_interval=2,
             )
             assert streams[i] == single
-
-
-class TestWarmFlagLatch:
-    def test_failed_warm_retries(self, monkeypatch):
-        from jpezy_tpu.ops import pack_pallas as PP
-
-        monkeypatch.setattr(PP, "_warmed", False)
-
-        def boom(*a):
-            raise RuntimeError("transient backend error")
-
-        monkeypatch.setattr(PP, "pack_words_pallas", boom)
-        with pytest.raises(RuntimeError):
-            PP.warm_pack_kernel()
-        assert PP._warmed is False  # must retry next call, not latch cold
-
-        import jax.numpy as jnp
-
-        monkeypatch.setattr(
-            PP, "pack_words_pallas", lambda *a: jnp.zeros((1,), jnp.uint32))
-        assert PP.warm_pack_kernel() is True
-        assert PP._warmed is True
-        assert PP.warm_pack_kernel() is False  # idempotent once warm

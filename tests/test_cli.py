@@ -9,8 +9,8 @@ import pytest
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
-def run_cli(args, cwd):
-    env = dict(os.environ)
+def run_cli(args, cwd, **extra_env):
+    env = dict(os.environ, **extra_env)
     env["JAX_PLATFORMS"] = "cpu"
     env["PYTHONPATH"] = REPO + os.pathsep + env.get("PYTHONPATH", "")
     return subprocess.run(
@@ -86,6 +86,30 @@ class TestEncodeCli:
         want = oracle.encode(rgb[..., 0], rgb[..., 1], rgb[..., 2])
         assert open(out, "rb").read() == want
 
+    @pytest.mark.parametrize("how", ["threshold", "flag"])
+    def test_device_backend(self, ppm_file, tmp_path, how):
+        """JPEZY_CLI_DEVICE_THRESHOLD_MP=0 (auto) or --device sends even a
+        small image to JAX's default backend, which the logo names; the
+        bytes equal the library's device encode."""
+        out = str(tmp_path / "out.jpg")
+        if how == "flag":
+            res = run_cli(["encode", ppm_file, out, "--device"], tmp_path,
+                          JAX_COMPILATION_CACHE_DIR=str(tmp_path / "c"))
+            assert "backend: cpu (XLA; forced by --device)" in res.stdout
+        else:
+            res = run_cli(["encode", ppm_file, out], tmp_path,
+                          JPEZY_CLI_DEVICE_THRESHOLD_MP="0",
+                          JAX_COMPILATION_CACHE_DIR=str(tmp_path / "c"))
+            assert "backend: cpu (XLA; auto: image >= 0 MP)" in res.stdout
+        assert res.returncode == 0, res.stderr
+        assert "\ton cpu" in res.stdout
+        from jpezy_tpu.codec import jax_codec
+        from jpezy_tpu.runtime import ppm as _ppm
+
+        _, _, _, rgb = _ppm.read(ppm_file)
+        assert open(out, "rb").read() == jax_codec.encode(
+            rgb[..., 0], rgb[..., 1], rgb[..., 2])
+
     def test_missing_file(self, tmp_path):
         res = run_cli(["encode", "nope.ppm", "out.jpg"], tmp_path)
         assert res.returncode != 0
@@ -95,6 +119,8 @@ class TestEncodeCli:
         res = run_cli(["encode"], tmp_path)
         assert res.returncode != 0
         assert "Usage:" in res.stderr
+        res = run_cli([], tmp_path)
+        assert "[--host | --cpu | --device]" in res.stderr
 
 
 class TestDecodeCli:

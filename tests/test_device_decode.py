@@ -132,10 +132,10 @@ class TestDeviceTransport:
 
 
 class TestScanModes:
-    """The TPU default symbol decode is the gather-free 'chain' mode
-    (entropy_decode.scan_mode), but the hermetic suite runs on CPU where
-    the default is 'lut' -- exercise BOTH table kinds and the unroll knob
-    explicitly so the TPU path is covered regardless of backend."""
+    """The default symbol decode depends on the backend
+    (entropy_decode.scan_mode; 'lut' on the CPU) -- exercise BOTH table
+    kinds and the unroll knob explicitly so every mode is covered
+    regardless of backend."""
 
     def _segments(self, seed=7, ri=3, hw=(48, 64)):
         from imagegen import make_test_image
